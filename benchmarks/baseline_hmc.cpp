@@ -46,7 +46,7 @@ struct Model {
 // Cross-validation mode: `baseline_hmc --fit data.bin n_keep` reads
 // (n, d, X row-major, y) as float64, runs the same sequential HMC with
 // burn-in, and prints the posterior mean — an independent C++ check of
-// the Python/TPU samplers on identical data.
+// the Python/JAX samplers on identical data.
 
 static int run_fit(const char* path, long n_keep);
 

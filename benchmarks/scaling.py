@@ -13,7 +13,7 @@ arrays, SPMD collectives over the process boundary) is exercised in
 software by ``tests/test_multiprocess.py`` (2 CPU processes x 4 virtual
 devices). On a single chip this harness degenerates to one row. Pass
 ``--cpu`` to exercise the full code path on the virtual host-device mesh
-(validates the harness, not ICI bandwidth).
+(validates the harness, not interconnect bandwidth).
 
 Prints one JSON line: {"devices": [...], "samples_per_sec": [...],
 "efficiency": [...]}.
@@ -150,8 +150,8 @@ def _multihost(args):
     distributed runtime, run the chain-sharded workload on the global
     mesh, print this process's local rate. Sum local_samples_per_sec
     over hosts and compare against the 1-host run for the BASELINE
-    >= 85% weak-scaling number. On TPU pods all three coordinates
-    auto-detect; pass them explicitly elsewhere.
+    >= 85% weak-scaling number. Pass all three coordinates explicitly
+    unless the cluster's launcher provides them to jax.distributed.
 
     ``MCMC_MULTIHOST_CPU=<n>`` forces CPU with n virtual devices per
     process — the Gloo smoke-test mode ``tests/test_multiprocess.py``
@@ -333,7 +333,9 @@ def main():
                     help="force CPU + 8 virtual devices (harness validation)")
     ap.add_argument("--multiprocess", type=int, default=0, metavar="N",
                     help="self-spawn 1..N CPU processes and report "
-                         "cross-process weak-scaling efficiency")
+                         "cross-process weak-scaling efficiency (the "
+                         "workers always run on the CPU: a GPU takes one "
+                         "JAX process)")
     ap.add_argument("--devices-per-process", type=int, default=4,
                     help="virtual CPU devices per process in --multiprocess "
                          "(size N x this to the physical core count)")
@@ -348,8 +350,8 @@ def main():
                          "chain-sharded workload on the global mesh "
                          "(scripts/run_multihost.sh wraps this)")
     ap.add_argument("--coordinator", default=None,
-                    help="--multihost coordinator host:port (omit on TPU "
-                         "pods: auto-detected)")
+                    help="--multihost coordinator host:port (omit only "
+                         "where the cluster launcher provides it)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args()
@@ -374,6 +376,8 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
+    from mcmc_tpu.device import enable_compile_cache
+    enable_compile_cache()
     from jax import lax
 
     from mcmc_tpu import models

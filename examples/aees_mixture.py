@@ -35,7 +35,7 @@ print("posterior mean for < -0.1:", d[d[:, 0] < -0.1].mean(axis=0))
 # the log-kernel spread across inverse temperatures and places rungs at
 # dbeta = spacing/sigma_val(beta) — the overlap the equi-energy jump
 # acceptance depends on — so only the hottest temperature needs choosing
-# (benchmarks/aees_ladder_sweep.json records the evidence).
+# (benchmarks/aees_ladder_sweep.py compares the ladders).
 settings.aees_settings.temper_vec = jnp.array([60.0])
 out2 = mcmc_tpu.aees(mu[0], log_kernel, settings, adapt_ladder=True,
                      key=jax.random.PRNGKey(3))

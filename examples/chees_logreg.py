@@ -1,4 +1,4 @@
-"""ChEES-HMC on Bayesian logistic regression — the TPU-native alternative
+"""ChEES-HMC on Bayesian logistic regression — the accelerator-native alternative
 to NUTS (no reference analog; Hoffman, Radul & Sountsov 2021).
 
 Run many chains: the trajectory-length criterion pools expectations across

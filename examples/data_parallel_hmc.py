@@ -4,7 +4,7 @@ A (chains, data) grid mesh runs every log-density/gradient evaluation
 across the data-axis devices with an XLA-inserted all-reduce — within-draw
 parallelism the reference's OpenMP-over-chains model cannot express
 (SURVEY.md §2d). On one host this demo uses 8 virtual CPU devices; on a
-pod slice the same code spans real chips over ICI.
+pod slice the same code spans real chips over the interconnect.
 """
 
 from _common import setup

@@ -7,9 +7,10 @@ Run the same script once per process/host; on CPU (for trying it out):
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \
       python distributed_hmc.py --coordinator localhost:9876 --nproc 2 --pid 1
 
-On a TPU pod slice, omit the flags — jax auto-detects the topology:
+On a GPU cluster, run it once per host with that host's process id and
+the coordinator's address:
 
-    python distributed_hmc.py
+    python distributed_hmc.py --coordinator HOST0:9876 --nproc N --pid I
 """
 
 import argparse

@@ -22,7 +22,8 @@ from mcmc_tpu import models
 # --- synthetic data: smooth rate field, Poisson counts -------------------
 # rbf_kernel applies f32-sized diagonal jitter (1e-4 * amplitude^2): a
 # hand-rolled 1e-6 jitter leaves this Gram matrix indefinite at f32 and
-# the TPU Cholesky fails loud (models/targets.py rbf_kernel docstring)
+# the accelerator Cholesky fails loud (models/targets.py rbf_kernel
+# docstring)
 n = 64
 xs = jnp.linspace(0.0, 4.0, n)
 K = models.rbf_kernel(xs, length_scale=0.5)

@@ -1,12 +1,13 @@
 """Fused-Pallas GLM HMC: probit regression and Student-t robust regression.
 
 The fused path runs the whole leapfrog trajectory inside one Pallas kernel
-(design matrix VMEM-resident, bf16 MXU matmuls, f32 accept — see
-mcmc_tpu/ops/fused_logreg.py). Beyond the canonical links the reference's
-examples cover (logistic — reference examples/autodiff/hmc_normal_autodiff.cpp
-is the closest analog), the link slot takes non-canonical families: probit
-(built in; erf via the A&S 7.1.26 polynomial, since Mosaic has no erf
-lowering) and Student-t robust regression (``studentt_link(nu)``), or any
+on the Triton route (design-matrix tiles streamed from L2, bf16 tensor-core
+products, f32 state — see mcmc_tpu/ops/fused_logreg.py), so this example
+needs a GPU. Beyond the canonical links the reference's examples cover
+(logistic — reference examples/autodiff/hmc_normal_autodiff.cpp is the
+closest analog), the link slot takes non-canonical families: probit (built
+in; erf via the A&S 7.1.26 polynomial, since Pallas's Triton lowering has no
+erf rule) and Student-t robust regression (``studentt_link(nu)``), or any
 callable ``link(eta, y) -> (mu_eff, ll_terms)``.
 """
 
@@ -16,12 +17,12 @@ jax = setup()
 import jax.numpy as jnp
 import numpy as np
 
+from mcmc_tpu.device import require_accelerator
 from mcmc_tpu.ops import fused_glm_hmc, studentt_link
 from mcmc_tpu import diagnostics
 
-on_tpu = jax.devices()[0].platform == "tpu"
-kw = dict(n_chains=512, block_chains=256) if on_tpu else \
-    dict(n_chains=32, block_chains=8, interpret=True)
+require_accelerator("gpu")
+kw = dict(n_chains=512)
 
 # --- probit regression -----------------------------------------------------
 k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)

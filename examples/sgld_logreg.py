@@ -35,7 +35,7 @@ s = mcmc_tpu.SGLDSettings(
 )
 out = mcmc_tpu.sgld(jnp.zeros(D), log_prior, log_lik, (X, y), s,
                     n_chains=32, key=jax.random.PRNGKey(1),
-                    minibatch="shared")   # one gather/draw: the TPU-native mode
+                    minibatch="shared")   # one gather/draw: the batched mode
                                           # (~250x per-chain gathers, docs/performance.md)
 
 err = jnp.abs(out.mean - beta_true).max()

@@ -1,8 +1,8 @@
-"""mcmc_tpu — a TPU-native MCMC inference engine.
+"""mcmc_tpu — an accelerator-native MCMC inference engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of MCMCLib
 (kthohr/mcmc, reference at /root/reference): seven MCMC samplers driven by a
-user-supplied log-posterior kernel, re-architected TPU-first:
+user-supplied log-posterior kernel, re-architected Accelerator-first:
 
 - the user target is a pure JAX function ``log_kernel(params) -> scalar``
   (autodiff via :func:`jax.grad` replaces the reference's ``grad_out*``
@@ -112,7 +112,7 @@ _SAMPLERS = {
 
 def sample(algorithm, initial_vals, log_kernel, settings=None, **kwargs):
     """One-call dispatcher over the samplers (the reference seven plus
-    the TPU-native extensions).
+    the accelerator-native extensions).
 
     ``sample("nuts", x0, log_kernel, settings, n_chains=..., ...)`` is
     equivalent to calling the named entry point directly. RM-HMC requires
@@ -185,8 +185,8 @@ def fit(initial_vals, log_kernel, *, n_chains=8, n_warmup=1000, n_draws=1000,
     ``algorithm="nuts"`` (default) runs NUTS with pooled dual-averaging
     step-size adaptation and windowed mass-matrix adaptation (diagonal, or
     full-covariance with ``dense_mass=True``); ``algorithm="chees"`` runs
-    ChEES-HMC with diagonal mass — the recommended choice for large chain
-    batches on TPU (~9x NUTS min-ESS/s on the flagship benchmark).
+    ChEES-HMC with diagonal mass — built for large lockstep chain batches
+    (no tree, so no chain waits on another's).
     ``target_accept`` defaults per algorithm (0.8 NUTS / 0.651 ChEES /
     0.8 HMC / 0.574 MALA); ``dense_mass`` selects full-covariance mass
     (NUTS/ChEES/HMC) or a dense learned preconditioner (MALA, unbounded

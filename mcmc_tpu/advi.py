@@ -21,7 +21,7 @@ space, at the cost of a full stochastic optimization. The final ELBO is a
 lower bound on ``log Z`` (tight exactly when q matches the posterior),
 cross-checkable against evidence.py / nested.py estimates.
 
-TPU-native design: the entire optimization is ONE jitted ``lax.scan`` of
+Accelerator-native design: the entire optimization is ONE jitted ``lax.scan`` of
 Adam steps — each step draws its ``(n_mc, d)`` reparameterization batch
 and evaluates the target vmapped; nothing leaves the device until the
 ELBO trace returns. Full-rank parameterizes ``L`` as an unconstrained

@@ -1,7 +1,7 @@
 """Box-constraint stack: bounds classification, unconstraining transforms,
 log-Jacobian corrections.
 
-TPU-native re-design of the reference's per-dimension ``switch`` loops
+Accelerator-native re-design of the reference's per-dimension ``switch`` loops
 (reference include/misc/determine_bounds_type.hpp:27-57,
 transform_vals.hpp:25-119, log_jacobian.hpp:25-58,
 inv_jacobian_adjust.hpp:25-56, bounds_check.hpp:25-49) as fully vectorized

@@ -70,7 +70,7 @@ def ess(draws, chain_chunk=None):
     bounding the FFT workspace to O(k * n * dim) instead of
     O(m * n * dim). Use for large chain batches computed on device (the
     4096-chain bench line: the one-shot FFT's padded temporaries exceed
-    HBM even when the draws themselves fit).
+    device memory even when the draws themselves fit).
     """
     draws = _ensure_3d(draws)
     n, m, dim = draws.shape

@@ -22,7 +22,7 @@ machinery, plus a curvature shortcut:
     log-mean-exp over rung k's draws — unbiased in the ratio sense and the
     recommended headline (TI's quadrature bias is one-signed; SS is not).
 
-  TPU-native design mirrors :mod:`mcmc_tpu.samplers.pt`: the whole ladder is
+  Accelerator-native design mirrors :mod:`mcmc_tpu.samplers.pt`: the whole ladder is
   one ``(K, d)`` batch (K tempered HMC/RWMH moves run as a single vmapped
   leapfrog), replica swaps are deterministic even/odd masked permutations
   (the non-reversible DEO scheme — zero host sync, zero kernel re-evals

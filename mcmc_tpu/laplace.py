@@ -9,7 +9,7 @@ mode itself and wraps a Gaussian (Laplace) approximation around it, giving
   starts every chain in the typical set instead of a user guess, and
 - a curvature-matched covariance usable as a preconditioner seed.
 
-TPU-first design: the whole MAP search is ONE jitted ``lax.scan`` of Adam
+Accelerator-first design: the whole MAP search is ONE jitted ``lax.scan`` of Adam
 steps with the restart axis vmapped — ``n_restarts`` optimizations run as a
 single batched compute graph (no Python loop, no host round-trips). The
 Hessian comes from ``jax.hessian`` (forward-over-reverse) at the best mode;

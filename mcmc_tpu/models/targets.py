@@ -14,6 +14,10 @@ import jax
 import jax.numpy as jnp
 
 LOG_2PI = math.log(2.0 * math.pi)
+# f32 data products in the GLM targets run at full f32 precision: the GPU
+# would otherwise take TF32 (about three decimal digits), and the density
+# is what the MH accept test reads
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def gaussian_mean_model(x_data, sigma=1.0, mu_0=1.0, sigma_0=2.0):
@@ -73,14 +77,16 @@ def make_logistic_regression_data(key, n_data: int, dim: int, dtype=jnp.float32)
 
 def logistic_regression_model(X, y, prior_scale=10.0, matmul_dtype=None):
     """Bayesian logistic regression: Bernoulli likelihood with N(0, s^2)
-    prior. The hot op is the (n_chains, dim) x (dim, n_data) matmul that XLA
-    maps onto the MXU when the kernel is vmapped over chains.
+    prior. The hot op is the (n_chains, dim) x (dim, n_data) product that
+    XLA hands to the GPU's matrix library when the kernel is vmapped over
+    chains.
 
-    ``matmul_dtype=jnp.bfloat16`` runs the data matmul in bf16 with f32
-    accumulation — 2x MXU throughput. The returned log-kernel value stays
-    f32, so MH acceptance (and hence exactness of the stationary
-    distribution) is only affected through proposal quality, not through the
-    accept test itself.
+    With ``matmul_dtype=None`` the product runs in f32 at
+    ``precision=HIGHEST`` — no TF32 on the GPU — so the density is the one
+    the CPU tests pin (1e-5 relative to float64). ``matmul_dtype=
+    jnp.bfloat16`` runs it in bf16 with f32 accumulation on the tensor
+    cores: the density the sampler's accept test reads is then the bf16
+    one.
     """
     X = jnp.asarray(X)
     y = jnp.asarray(y)
@@ -91,7 +97,7 @@ def logistic_regression_model(X, y, prior_scale=10.0, matmul_dtype=None):
             logits = jnp.dot(Xm, beta.astype(matmul_dtype),
                              preferred_element_type=jnp.float32)
         else:
-            logits = X @ beta
+            logits = jnp.dot(X, beta, precision=_HIGHEST)
         ll = jnp.sum(y * logits - jax.nn.softplus(logits))
         lp = -0.5 * jnp.sum(beta**2) / prior_scale**2
         return ll + lp
@@ -197,12 +203,13 @@ def eight_schools_model(y=None, sigma=None, non_centered=True,
 
 
 def poisson_regression_model(X, y, prior_scale=5.0):
-    """Poisson GLM with log link: y_i ~ Poisson(exp(x_i . beta))."""
+    """Poisson GLM with log link: y_i ~ Poisson(exp(x_i . beta)); the data
+    product runs at ``precision=HIGHEST``."""
     X = jnp.asarray(X)
     y = jnp.asarray(y)
 
     def log_kernel(beta):
-        eta = X @ beta
+        eta = jnp.dot(X, beta, precision=_HIGHEST)
         ll = jnp.sum(y * eta - jnp.exp(eta))
         return ll - 0.5 * jnp.sum(beta**2) / prior_scale**2
 
@@ -210,12 +217,13 @@ def poisson_regression_model(X, y, prior_scale=5.0):
 
 
 def student_t_regression_model(X, y, df=4.0, scale=1.0, prior_scale=10.0):
-    """Robust linear regression with Student-t errors."""
+    """Robust linear regression with Student-t errors; the data product
+    runs at ``precision=HIGHEST``."""
     X = jnp.asarray(X)
     y = jnp.asarray(y)
 
     def log_kernel(beta):
-        resid = (y - X @ beta) / scale
+        resid = (y - jnp.dot(X, beta, precision=_HIGHEST)) / scale
         ll = -0.5 * (df + 1.0) * jnp.sum(jnp.log1p(resid**2 / df))
         return ll - 0.5 * jnp.sum(beta**2) / prior_scale**2
 
@@ -260,9 +268,10 @@ def rbf_kernel(xs, length_scale=1.0, amplitude=1.0, jitter=1e-4):
     targets live in example programs).
 
     The default jitter is sized for float32: a smooth-kernel Gram matrix
-    over tens of points has eigenvalues below f32 resolution, and the TPU
-    Cholesky returns NaN where CPU LAPACK may limp through — 1e-6 was
-    measured indefinite (min eig -3.5e-6) at n=64, length_scale=0.5."""
+    over tens of points has eigenvalues below f32 resolution, and an
+    accelerator Cholesky can return NaN where CPU LAPACK limps through —
+    1e-6 was measured indefinite (min eig -3.5e-6) at n=64,
+    length_scale=0.5."""
     xs = jnp.asarray(xs)
     if xs.ndim == 1:
         xs = xs[:, None]

@@ -14,7 +14,7 @@ threshold. The enclosed prior mass after the ``j``-th sequential kill
 shrinks by ``E[log t] = -1/(N-j)`` (order statistics of uniforms), giving
 the quadrature ``Z = sum_j L_j * (X_{j-1} - X_j)`` over dead points.
 
-TPU-native design — the classic algorithm is irreducibly sequential one
+Accelerator-native design — the classic algorithm is irreducibly sequential one
 kill at a time; this implementation batches it:
 
 - **batch kills**: each round removes the ``kill_frac * N`` worst points at

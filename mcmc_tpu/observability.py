@@ -7,7 +7,7 @@ The reference has no timers or counters beyond ``n_accept_draws``
   synchronization, so async dispatch doesn't hide compute in a later phase;
 - :func:`throughput` — draws/sec and leapfrog-steps/sec accounting;
 - :func:`trace` / :func:`capture_trace` — thin wrappers over
-  :mod:`jax.profiler` for op-level TPU traces viewable in TensorBoard /
+  :mod:`jax.profiler` for op-level device traces viewable in TensorBoard /
   Perfetto.
 """
 

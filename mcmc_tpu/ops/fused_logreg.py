@@ -1,28 +1,35 @@
-"""Pallas fused HMC trajectories for GLM posteriors (logistic / Poisson /
-linear links; logistic regression is the BASELINE flagship).
+"""Fused HMC trajectories for GLM posteriors (logistic / Poisson / linear /
+probit links and pluggable families; logistic regression is the BASELINE
+flagship), written for Hopper through Pallas on the Triton route.
 
-Why this kernel exists: under plain XLA, each gradient of the logistic
-log-posterior materializes the ``(n_chains, n_data)`` logits tensor in HBM —
-two big matmuls with an elementwise stage between them that XLA cannot keep
-on-chip across a matmul-matmul chain. Measured on v5e, the vmapped gradient
-runs at ~35 TFLOP/s *regardless of dtype* — HBM-bandwidth-bound
-(~130 MB round-trip per gradient evaluation).
+Why this kernel exists: under plain XLA, each gradient of a GLM
+log-posterior writes the ``(n_chains, n_data)`` linear predictor to device
+memory between its two matrix products and reads it back — at 16384 chains
+x 1000 observations that is 65.5 MB of f32 each way per gradient, more than
+an H100's 50 MB L2, against only 6.6 GFLOP of matrix work. This kernel runs
+the whole ``n_leap``-step leapfrog for a block of chains inside one program:
+the linear predictor of each observation tile lives in registers, the
+design-matrix tiles stream from L2, and positions, momenta and the gradient
+accumulator stay on chip between leapfrog steps. Device-memory traffic per
+trajectory drops to one read and write of the ``(chains, dim)`` state.
 
-This kernel fuses the entire ``n_leap``-step leapfrog trajectory for a block
-of chains inside VMEM: the design matrix (bf16, both orientations), the
-logits tile, positions and momenta never leave the chip between leapfrog
-steps. HBM traffic per trajectory drops from ``2 L x 130 MB`` to one
-read/write of the (chains, dim) state plus one read of X per block —
-turning the workload compute-bound on the MXU.
+Layout: a grid over blocks of ``block_chains`` chains (blocks run in
+parallel on the SMs; nothing carries between them; 64 chains give 256
+blocks at 16384 chains, about two per SM). Inside a block, each gradient is
+a loop over observation tiles of ``obs_tile`` rows: ``eta =
+z X_t^T`` (bf16 operands, f32 accumulation), the link's elementwise stage,
+then ``g += r X_t``. Every tile is a power of two.
 
-Precision contract: matmuls run bf16 with f32 accumulation; positions,
-momenta, and the final potential are f32. The MH accept test (done outside,
-in XLA) therefore uses the same f32 log-density as the reference math —
-reduced gradient precision only perturbs the *proposal*, never the
-stationary distribution (standard MH exactness argument).
+Precision contract: the matrix products run in bf16 with f32 accumulation;
+positions, momenta, the gradient and the returned potential are f32. The
+potential the MH test reads for a proposal comes from the same bf16
+products, so the chain is exact for the posterior whose linear predictor is
+computed from bf16-rounded ``z`` and ``X``; the initial potential is the f32
+density at ``precision=HIGHEST``. :func:`make_xla_hmc_step` is the plain
+XLA transition the kernel is measured and tested against.
 
-The public entry is :func:`make_fused_hmc_step`, a drop-in batched HMC
-transition for ``(n_chains, dim)`` chain blocks matching the semantics of
+The public entry is :func:`make_fused_hmc_step`, a batched HMC transition
+for ``(n_chains, dim)`` chain blocks matching the semantics of
 ``mcmc_tpu.samplers.hmc`` (reference src/hmc.cpp:150-196: momentum refresh,
 leapfrog, min(0.01, .) accept clamp, +inf guard).
 """
@@ -34,16 +41,31 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = ["FusedHMCState", "make_fused_trajectory", "make_fused_hmc_step",
-           "make_fused_trajectory_rt", "studentt_link",
-           "make_fused_gaussian_trajectory", "make_fused_gaussian_hmc_step"]
+           "make_xla_trajectory", "make_xla_hmc_step", "studentt_link",
+           "make_gaussian_trajectory", "make_gaussian_hmc_step"]
+
+# Tile and launch constants: the best of a 36-point sweep on an H100 at
+# 16384 chains x (1000, 100), n_leap=4 (benchmarks/fused_glm_sweep.py;
+# PERF.md records the sweep and the card).
+BLOCK_CHAINS = 64
+OBS_TILE = 32
+NUM_WARPS = 4
+NUM_STAGES = 3
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _pow2_at_least(x: int, floor: int = 16) -> int:
+    """Smallest power of two >= max(x, floor); 16 is the least width
+    Triton's ``dot`` takes."""
+    return max(floor, 1 << (int(x) - 1).bit_length())
 
 
 class FusedHMCState(NamedTuple):
@@ -62,12 +84,12 @@ _PROBIT_TINY = 1e-30
 
 def _erf_poly(x):
     """erf via Abramowitz & Stegun 7.1.26 (exp-only, |error| <= 1.5e-7 —
-    at f32 epsilon). Mosaic has no ``erf`` lowering (verified on v5e:
-    "Unimplemented primitive in Pallas TPU lowering: erf"), so the probit
-    family uses this polynomial consistently in BOTH the fused kernel and
-    the host-side reference potential — the approximated likelihood IS the
-    model, keeping the MH accept exact for it (deviation from exact probit:
-    < 1e-5 per-datum log-likelihood, below f32 resolution of the sums)."""
+    at f32 epsilon). Pallas's Triton lowering has no rule for ``erf`` (it
+    lowers ``erf_inv`` but not ``erf``), so the probit family uses this
+    polynomial consistently in BOTH the fused kernel and the host-side
+    reference potential — the approximated likelihood IS the model, keeping
+    the MH accept exact for it (deviation from exact probit: < 1e-5
+    per-datum log-likelihood, below f32 resolution of the sums)."""
     a1, a2, a3, a4, a5 = (0.254829592, -0.284496736, 1.421413741,
                           -1.453152027, 1.061405429)
     p = 0.3275911
@@ -80,7 +102,7 @@ def _erf_poly(x):
 
 def _link_eval_fns(link):
     """Per-family ``(mu_eff, ll_terms)`` from the linear predictor, shared by
-    every fused GLM kernel. The gradient contract is
+    the fused kernel and its reference potential. The gradient contract is
     ``d ll / d eta = y - mu_eff`` — exactly the mean function for canonical
     links (logistic/poisson/linear); for the non-canonical ``probit`` and
     the :func:`studentt_link` family ``mu_eff = y - score`` encodes the true
@@ -126,156 +148,167 @@ def studentt_link(nu: float = 4.0):
 
 
 def make_fused_trajectory(X, y, prior_scale: float, step_size: float,
-                          n_leap: int, block_chains: int = 256,
-                          interpret: bool = False, link: str = "logistic"):
+                          n_leap: int, *, link="logistic",
+                          block_chains: int = BLOCK_CHAINS,
+                          obs_tile: int = OBS_TILE,
+                          num_warps: int = NUM_WARPS,
+                          num_stages: int = NUM_STAGES,
+                          interpret: bool = False):
     """Build ``traj(z, p) -> (z_new, p_new, U_new)`` over padded arrays.
 
-    ``X`` is (n_data, dim); internally padded to (Np, Dp) multiples of
-    (512, 128) with a row mask so padded data rows contribute exactly zero
-    to both gradient and log-density. ``link`` selects the GLM family: all
-    three share the gradient structure ``X^T (y - mu(eta)) - z / s^2`` so
-    one kernel covers them.
+    ``X`` is (n_data, dim). Columns are padded to ``dim_padded``, the next
+    power of two (at least 16); rows to a multiple of the observation tile
+    (``obs_tile``, capped at the padded row count), with a row mask so
+    padded rows contribute exactly zero to gradient and log-density. Any
+    ``n_chains`` is accepted: the chain axis is padded to a multiple of
+    ``block_chains`` and the padding sliced off.
 
-    ``link`` may also be a *callable* ``link_fn(eta, y) -> (mu, ll_terms)``
-    mapping the linear predictor to the mean function and the per-datum
-    log-likelihood terms (both same shape as ``eta``; padded columns are
-    masked by the kernel afterwards) — any jnp-expressible exponential
-    family with canonical link plugs into the same fused trajectory (the
-    kernel uses the canonical-link identity ``d ll / d eta = y - mu``).
+    ``link`` selects the GLM family — all share the gradient structure
+    ``X^T (y - mu_eff(eta)) - z / s^2`` — or is a callable
+    ``link_fn(eta, y) -> (mu_eff, ll_terms)`` (see :func:`_link_eval_fns`).
+
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU
+    tests); otherwise it compiles through Triton for the GPU.
     """
     if not callable(link) and link not in _LINKS:
         raise ValueError(f"link must be callable or one of {_LINKS}, got {link!r}")
     X = jnp.asarray(X, jnp.float32)
     y = jnp.asarray(y, jnp.float32)
     n_data, dim = X.shape
-    Np = _round_up(n_data, 512)
-    Dp = _round_up(dim, 128)
+    Dp = _pow2_at_least(dim)
+    T = min(int(obs_tile), _pow2_at_least(n_data))
+    Np = _round_up(n_data, T)
+    n_tiles = Np // T
+    bc = int(block_chains)
     inv_pv = 1.0 / (prior_scale * prior_scale)
     eps = float(step_size)
 
-    Xp = jnp.zeros((Np, Dp), jnp.float32).at[:n_data, :dim].set(X)
-    Xb = Xp.astype(jnp.bfloat16)            # (Np, Dp) for grad matmul
-    Xtb = Xp.T.astype(jnp.bfloat16)         # (Dp, Np) for logits matmul
-    yrow = jnp.zeros((1, Np), jnp.float32).at[0, :n_data].set(y)
-    mask = jnp.zeros((1, Np), jnp.float32).at[0, :n_data].set(1.0)
+    Xb = jnp.zeros((Np, Dp), jnp.float32).at[:n_data, :dim].set(X) \
+        .astype(jnp.bfloat16)
+    yv_all = jnp.zeros((Np,), jnp.float32).at[:n_data].set(y)
+    mask = jnp.zeros((Np,), jnp.float32).at[:n_data].set(1.0)
     link_eval_ = _link_eval_fns(link)
 
-    def kernel(z_ref, p_ref, xt_ref, x_ref, y_ref, m_ref, oz_ref, op_ref, ou_ref):
-        z = z_ref[:]
-        p = p_ref[:]
-        xt = xt_ref[:]
-        x = x_ref[:]
-        yv = y_ref[:]
-        mv = m_ref[:]
-
+    def kernel(z_ref, p_ref, x_ref, y_ref, m_ref, oz_ref, op_ref, ou_ref):
         def grad_of(z, want_u):
-            eta = jnp.dot(z.astype(jnp.bfloat16), xt,
-                          preferred_element_type=jnp.float32)
-            mu, ll_terms = link_eval_(eta, yv)
-            r = (yv - mu) * mv
-            g = jnp.dot(r.astype(jnp.bfloat16), x,
-                        preferred_element_type=jnp.float32) - z * inv_pv
-            if want_u:
-                ll = jnp.sum(mv * ll_terms, axis=1, keepdims=True)
-                u = -(ll - 0.5 * jnp.sum(z * z, axis=1, keepdims=True) * inv_pv)
-            else:
-                u = None
-            return g, u
+            zb = z.astype(jnp.bfloat16)
 
+            def tile(t, carry):
+                g, ll = carry
+                rows = pl.ds(pl.multiple_of(t * T, T), T)
+                x = x_ref[rows, :]                    # (T, Dp) bf16
+                yv = y_ref[rows][None, :]             # (1, T)
+                mv = m_ref[rows][None, :]
+                eta = pl.dot(zb, x, trans_b=True)     # (bc, T) f32
+                mu, ll_terms = link_eval_(eta, yv)
+                r = ((yv - mu) * mv).astype(jnp.bfloat16)
+                g = g + pl.dot(r, x)                  # (bc, Dp) f32
+                if want_u:
+                    ll = ll + jnp.sum(mv * ll_terms, axis=1)
+                return g, ll
+
+            g, ll = lax.fori_loop(
+                0, n_tiles, tile,
+                (jnp.zeros((bc, Dp), jnp.float32), jnp.zeros((bc,), jnp.float32)))
+            return g - z * inv_pv, ll
+
+        z = z_ref[...]
+        p = p_ref[...]
         # gradient hoisted across steps: n_leap + 1 evaluations, not
         # 2 * n_leap (the boundary gradient is shared by adjacent half-kicks
         # at the unchanged position — bit-identical op sequence)
-        u_out = None
         g, _ = grad_of(z, False)
+        ll = None
         for k in range(n_leap):
             p = p + (0.5 * eps) * g
             z = z + eps * p
-            g, u = grad_of(z, k == n_leap - 1)
+            g, ll = grad_of(z, k == n_leap - 1)
             p = p + (0.5 * eps) * g
-            u_out = u
-
-        oz_ref[:] = z
-        op_ref[:] = p
-        ou_ref[:] = u_out
-
-    n_flops = (n_leap + 1) * (4 * block_chains * Dp * Np)
+        oz_ref[...] = z
+        op_ref[...] = p
+        ou_ref[...] = -(ll - 0.5 * jnp.sum(z * z, axis=1) * inv_pv)
 
     def traj(z, p):
         n_chains = z.shape[0]
-        if n_chains % block_chains != 0:
-            raise ValueError(
-                f"n_chains={n_chains} must be a multiple of "
-                f"block_chains={block_chains}"
-            )
-        grid = (n_chains // block_chains,)
-        bspec = pl.BlockSpec((block_chains, Dp), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-        full = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                          memory_space=pltpu.VMEM)
+        Cp = _round_up(n_chains, bc)
+        if Cp != n_chains:
+            pad = ((0, Cp - n_chains), (0, 0))
+            z, p = jnp.pad(z, pad), jnp.pad(p, pad)
+        state_spec = pl.BlockSpec((bc, Dp), lambda i: (i, 0))
+        whole = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))
         z_new, p_new, u_new = pl.pallas_call(
             kernel,
-            grid=grid,
-            in_specs=[bspec, bspec, full((Dp, Np)), full((Np, Dp)),
-                      full((1, Np)), full((1, Np))],
-            out_specs=[bspec, bspec,
-                       pl.BlockSpec((block_chains, 1), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)],
+            grid=(Cp // bc,),
+            in_specs=[state_spec, state_spec, whole((Np, Dp)), whole((Np,)),
+                      whole((Np,))],
+            out_specs=[state_spec, state_spec,
+                       pl.BlockSpec((bc,), lambda i: (i,))],
             out_shape=[
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, 1), jnp.float32),
+                jax.ShapeDtypeStruct((Cp, Dp), jnp.float32),
+                jax.ShapeDtypeStruct((Cp, Dp), jnp.float32),
+                jax.ShapeDtypeStruct((Cp,), jnp.float32),
             ],
-            cost_estimate=pl.CostEstimate(
-                flops=n_flops * grid[0], transcendentals=2 * n_leap * block_chains * Np * grid[0],
-                bytes_accessed=4 * n_chains * Dp * 4,
-            ),
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                                 num_stages=num_stages),
             interpret=interpret,
-        )(z, p, Xtb, Xb, yrow, mask)
-        return z_new, p_new, u_new[:, 0]
+            name="fused_glm_trajectory",
+        )(z, p, Xb, yv_all, mask)
+        return z_new[:n_chains], p_new[:n_chains], u_new[:n_chains]
 
     traj.dim = dim
     traj.dim_padded = Dp
     return traj
 
 
-def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
-                        block_chains: int = 256, interpret: bool = False,
-                        link: str = "logistic"):
-    """Batched HMC transition ``step(key, state) -> (state, info)`` with the
-    trajectory fused in Pallas; RNG is batch-generated from one key per step
-    (counter-based, deterministic) instead of per-chain key splitting."""
-    traj = make_fused_trajectory(X, y, prior_scale, step_size, n_leap,
-                                 block_chains, interpret, link)
-    dim, Dp = traj.dim, traj.dim_padded
-
+def glm_log_density(X, y, prior_scale=10.0, link="logistic"):
+    """The f32 GLM log-posterior over ``(dim,)`` coefficients, with the data
+    product at ``precision=HIGHEST`` (no TF32 on the GPU): the fused
+    kernel's reference and its initial potential."""
     X32 = jnp.asarray(X, jnp.float32)
     y32 = jnp.asarray(y, jnp.float32)
     inv_pv = 1.0 / (prior_scale * prior_scale)
     link_eval_ = _link_eval_fns(link)
 
-    def reference_potential(zp):
-        # same per-family ll_terms the kernel computes, so the initial U is
-        # consistent with in-trajectory U for every link (incl. callables)
-        eta = X32 @ zp[:dim]
+    def log_density(beta):
+        eta = jnp.dot(X32, beta, precision=lax.Precision.HIGHEST)
         _mu, ll_terms = link_eval_(eta, y32)
-        ll = jnp.sum(ll_terms)
-        return -(ll - 0.5 * jnp.sum(zp[:dim] ** 2) * inv_pv)
+        return jnp.sum(ll_terms) - 0.5 * jnp.sum(beta * beta) * inv_pv
+
+    return log_density
+
+
+def _hmc_transition(traj, potential, dim, Dp, step_size=None,
+                    step_jitter=0.0):
+    """Batched HMC transition around ``traj(z, p) -> (z, p, U)`` over
+    ``(n_chains, Dp)`` positions whose columns past ``dim`` are padding;
+    ``potential`` maps one ``(dim,)`` position to U for the initial state.
+    ``step_jitter > 0`` draws each transition's step size uniformly in
+    ``step_size * [1 - j, 1 + j]`` (shared across chains) and passes it as
+    ``traj(z, p, eps)``."""
+    col_mask = (jnp.arange(Dp) < dim).astype(jnp.float32)
 
     def init(positions):
         n_chains = positions.shape[0]
         zp = jnp.zeros((n_chains, Dp), jnp.float32).at[:, :dim].set(positions)
-        U = jax.vmap(reference_potential)(zp)
+        U = jax.vmap(lambda z: potential(z[:dim]))(zp)
         return FusedHMCState(position=zp, potential=U)
-
-    col_mask = (jnp.arange(Dp) < dim).astype(jnp.float32)
 
     def step(key, state: FusedHMCState):
         n_chains = state.position.shape[0]
-        k_mom, k_acc = jax.random.split(key)
+        if step_jitter:
+            k_mom, k_acc, k_eps = jax.random.split(key, 3)
+        else:
+            k_mom, k_acc = jax.random.split(key)
         p0 = jax.random.normal(k_mom, (n_chains, Dp), jnp.float32) * col_mask
         prev_K = 0.5 * jnp.sum(p0 * p0, axis=1)
 
-        z_new, p_new, prop_U = traj(state.position, p0)
+        if step_jitter:
+            eps = step_size * (1.0 + step_jitter * jax.random.uniform(
+                k_eps, (), jnp.float32, minval=-1.0, maxval=1.0))
+            z_new, p_new, prop_U = traj(state.position, p0, eps)
+        else:
+            z_new, p_new, prop_U = traj(state.position, p0)
         prop_U = jnp.where(jnp.isfinite(prop_U), prop_U, jnp.inf)
         prop_K = 0.5 * jnp.sum(p_new * p_new, axis=1)
 
@@ -295,277 +328,115 @@ def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
     return step
 
 
-# ---------------------------------------------------------------------------
-# Fused multivariate-Gaussian trajectory: U(z) = (z-m)^T P (z-m) / 2. The
-# gradient is one (chains, Dp) x (Dp, Dp) MXU matmul per half-kick; the
-# whole n_leap trajectory stays in VMEM (P, mean, z, p resident), so it is
-# the pure-matmul member of the fused-kernel family (ROADMAP #3).
-# ---------------------------------------------------------------------------
+def make_fused_hmc_step(X, y, prior_scale=10.0, step_size=0.01, n_leap=4,
+                        **kernel_kw):
+    """Batched HMC transition ``step(key, state) -> (state, info)`` with the
+    trajectory fused in one Pallas kernel (``kernel_kw`` as
+    :func:`make_fused_trajectory`: ``link``, tiles, ``interpret``); RNG is
+    batch-generated from one key per step (counter-based, deterministic)
+    instead of per-chain key splitting. The initial potential is
+    :func:`glm_log_density` at ``precision=HIGHEST``."""
+    traj = make_fused_trajectory(X, y, prior_scale, step_size, n_leap,
+                                 **kernel_kw)
+    log_density = glm_log_density(X, y, prior_scale,
+                                  kernel_kw.get("link", "logistic"))
+    return _hmc_transition(traj, lambda z: -log_density(z), traj.dim,
+                           traj.dim_padded)
 
-def make_fused_gaussian_trajectory(precision, mean=None, step_size=0.1,
-                                   n_leap=4, block_chains: int = 256,
-                                   interpret: bool = False):
-    """Build ``traj(z, p) -> (z_new, p_new, U_new)`` for a multivariate
-    Gaussian target ``N(mean, P^{-1})`` given its precision matrix ``P``.
 
-    ``precision`` is (dim, dim) SPD (or a (dim,) diagonal); padded to
-    multiples of 128 with identity on the padded diagonal so padded
-    coordinates stay decoupled (their positions never feed back into real
-    coordinates and contribute zero to U because z starts 0 there and the
-    momentum is masked by the caller, matching :func:`make_fused_hmc_step`'s
-    column mask convention).
-    """
-    P = jnp.asarray(precision, jnp.float32)
-    if P.ndim == 1:
-        P = jnp.diag(P)
-    dim = P.shape[0]
-    Dp = _round_up(dim, 128)
-    eps_default = float(step_size)
+def make_xla_trajectory(log_density, step_size: float, n_leap: int):
+    """The plain reference: ``traj(z, p) -> (z_new, p_new, U_new)`` as a
+    leapfrog over ``jax.vmap(jax.grad(log_density))`` on ``(n_chains, dim)``
+    arrays, compiled by XLA (gradient hoisted like the fused kernel)."""
+    eps = float(step_size)
+    grad = jax.vmap(jax.grad(log_density))
 
-    Pp = jnp.eye(Dp, dtype=jnp.float32).at[:dim, :dim].set(P)
-    m_row = jnp.zeros((1, Dp), jnp.float32)
-    if mean is not None:
-        m_row = m_row.at[0, :dim].set(jnp.asarray(mean, jnp.float32))
-
-    def kernel(eps_ref, z_ref, p_ref, prec_ref, mean_ref, oz_ref, op_ref,
-               ou_ref):
-        # step size as an SMEM scalar: exact quadratic targets NEED per-draw
-        # step jitter — fixed (eps, L) makes each coordinate's trajectory a
-        # fixed rotation angle L*eps/sigma_i mod 2pi, and any sigma_i near a
-        # resonance (angle ~ 0) mixes arbitrarily slowly (measured: rank
-        # R-hat 3.2 on the 100-d log-spaced target at fixed eps; 1.00 with
-        # +-20% jitter)
-        eps = eps_ref[0]
-        z = z_ref[:]
-        p = p_ref[:]
-        prec = prec_ref[:]
-        mu = mean_ref[:]
-
-        def grad_of(z):
-            # f32 matmul: the precision solve is the whole computation here,
-            # and Gaussian targets are often ill-conditioned — keep full
-            # precision on the MXU (f32 matmuls still run on the MXU via
-            # 3-pass bf16 decomposition)
-            return -jnp.dot(z - mu, prec, preferred_element_type=jnp.float32)
-
-        # boundary gradient hoisted: n_leap + 1 matmuls, not 2 * n_leap
-        g = grad_of(z)
+    def traj(z, p):
+        g = grad(z)
         for _ in range(n_leap):
             p = p + (0.5 * eps) * g
             z = z + eps * p
-            g = grad_of(z)
+            g = grad(z)
             p = p + (0.5 * eps) * g
+        return z, p, -jax.vmap(log_density)(z)
 
-        d = z - mu
-        u = 0.5 * jnp.sum(d * jnp.dot(d, prec,
-                                      preferred_element_type=jnp.float32),
-                          axis=1, keepdims=True)
-        oz_ref[:] = z
-        op_ref[:] = p
-        ou_ref[:] = u
+    return traj
+
+
+def make_xla_hmc_step(log_density, dim, step_size=0.01, n_leap=4):
+    """The same batched HMC transition as :func:`make_fused_hmc_step` with
+    the plain XLA trajectory of :func:`make_xla_trajectory` — e.g. over
+    ``models.logistic_regression_model(X, y, matmul_dtype=...)``."""
+    traj = make_xla_trajectory(log_density, step_size, n_leap)
+    return _hmc_transition(traj, lambda z: -log_density(z), dim, dim)
+
+
+# ---------------------------------------------------------------------------
+# Multivariate-Gaussian trajectory: U(z) = (z-m)^T P (z-m) / 2. Its gradient
+# is one (chains, dim) x (dim, dim) product per half-kick, which XLA hands
+# to cuBLAS; the leapfrog is a plain lax.fori_loop.
+# ---------------------------------------------------------------------------
+
+def _as_precision_matrix(precision):
+    P = jnp.asarray(precision, jnp.float32)
+    return jnp.diag(P) if P.ndim == 1 else P
+
+
+def make_gaussian_trajectory(precision, mean=None, step_size=0.1, n_leap=4):
+    """Build ``traj(z, p, eps=None) -> (z_new, p_new, U_new)`` on
+    ``(n_chains, dim)`` arrays for a multivariate Gaussian target
+    ``N(mean, P^{-1})`` given its precision matrix ``P`` ((dim, dim) SPD or
+    a (dim,) diagonal). Products run at ``precision=HIGHEST``: Gaussian
+    targets are often ill-conditioned, and the solve is the whole
+    computation."""
+    P = _as_precision_matrix(precision)
+    dim = P.shape[0]
+    mu = jnp.zeros((dim,), jnp.float32) if mean is None \
+        else jnp.asarray(mean, jnp.float32)
+    hi = lax.Precision.HIGHEST
 
     def traj(z, p, eps=None):
-        n_chains = z.shape[0]
-        if n_chains % block_chains != 0:
-            raise ValueError(
-                f"n_chains={n_chains} must be a multiple of "
-                f"block_chains={block_chains}"
-            )
-        grid = (n_chains // block_chains,)
-        bspec = pl.BlockSpec((block_chains, Dp), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-        full = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                          memory_space=pltpu.VMEM)
-        eps_arr = jnp.asarray(eps_default if eps is None else eps,
-                              jnp.float32).reshape(1)
-        z_new, p_new, u_new = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), bspec, bspec,
-                      full((Dp, Dp)), full((1, Dp))],
-            out_specs=[bspec, bspec,
-                       pl.BlockSpec((block_chains, 1), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, 1), jnp.float32),
-            ],
-            interpret=interpret,
-        )(eps_arr, z, p, Pp, m_row)
-        return z_new, p_new, u_new[:, 0]
+        eps = jnp.asarray(step_size if eps is None else eps, jnp.float32)
+
+        def grad_of(z):
+            return -jnp.dot(z - mu, P, precision=hi)
+
+        def leap(_, carry):
+            z, p, g = carry
+            p = p + (0.5 * eps) * g
+            z = z + eps * p
+            g = grad_of(z)
+            return z, p + (0.5 * eps) * g, g
+
+        z, p, _ = lax.fori_loop(0, n_leap, leap, (z, p, grad_of(z)))
+        d = z - mu
+        return z, p, 0.5 * jnp.sum(d * jnp.dot(d, P, precision=hi), axis=1)
 
     traj.dim = dim
-    traj.dim_padded = Dp
+    traj.dim_padded = dim
     return traj
 
 
-def make_fused_gaussian_hmc_step(precision, mean=None, step_size=0.1,
-                                 n_leap=4, block_chains: int = 256,
-                                 interpret: bool = False,
-                                 step_jitter: float = 0.2):
-    """Batched HMC transition for a multivariate-Gaussian target with the
-    trajectory fused in Pallas (same driver contract as
-    :func:`make_fused_hmc_step`).
+def make_gaussian_hmc_step(precision, mean=None, step_size=0.1, n_leap=4,
+                           step_jitter: float = 0.2):
+    """Batched HMC transition for a multivariate-Gaussian target (same
+    driver contract as :func:`make_fused_hmc_step`).
 
     ``step_jitter=j`` draws the per-draw step size uniformly in
-    ``step_size * [1 - j, 1 + j]`` (shared across chains — one SMEM
-    scalar). On an exactly quadratic target this is REQUIRED for
-    ergodicity in practice: with fixed ``(step_size, n_leap)`` each
-    coordinate's trajectory is a fixed rotation angle, and any scale near
-    a 2-pi resonance of that angle stops mixing (see kernel comment).
-    Set 0.0 to disable."""
-    traj = make_fused_gaussian_trajectory(precision, mean, step_size, n_leap,
-                                          block_chains, interpret)
-    dim, Dp = traj.dim, traj.dim_padded
+    ``step_size * [1 - j, 1 + j]`` (shared across chains). On an exactly
+    quadratic target this is REQUIRED for ergodicity in practice: with
+    fixed ``(step_size, n_leap)`` each coordinate's trajectory is a fixed
+    rotation angle ``L*eps/sigma_i`` mod 2pi, and any scale near a
+    resonance (angle ~ 0) mixes arbitrarily slowly (measured: rank R-hat
+    3.2 on the 100-d log-spaced target at fixed eps; 1.00 with +-20%
+    jitter). Set 0.0 to disable."""
+    traj = make_gaussian_trajectory(precision, mean, step_size, n_leap)
+    P = _as_precision_matrix(precision)
+    mean_v = 0.0 if mean is None else jnp.asarray(mean, jnp.float32)
 
-    P = jnp.asarray(precision, jnp.float32)
-    if P.ndim == 1:
-        P = jnp.diag(P)
-    mean_v = jnp.zeros((dim,), jnp.float32) if mean is None \
-        else jnp.asarray(mean, jnp.float32)
+    def potential(z):
+        d = z - mean_v
+        return 0.5 * d @ jnp.dot(P, d, precision=lax.Precision.HIGHEST)
 
-    def reference_potential(zp):
-        d = zp[:dim] - mean_v
-        return 0.5 * d @ (P @ d)
-
-    def init(positions):
-        n_chains = positions.shape[0]
-        zp = jnp.zeros((n_chains, Dp), jnp.float32).at[:, :dim].set(positions)
-        U = jax.vmap(reference_potential)(zp)
-        return FusedHMCState(position=zp, potential=U)
-
-    col_mask = (jnp.arange(Dp) < dim).astype(jnp.float32)
-
-    def step(key, state: FusedHMCState):
-        n_chains = state.position.shape[0]
-        k_mom, k_acc, k_eps = jax.random.split(key, 3)
-        p0 = jax.random.normal(k_mom, (n_chains, Dp), jnp.float32) * col_mask
-        prev_K = 0.5 * jnp.sum(p0 * p0, axis=1)
-
-        eps = step_size * (1.0 + step_jitter * jax.random.uniform(
-            k_eps, (), jnp.float32, minval=-1.0, maxval=1.0))
-        z_new, p_new, prop_U = traj(state.position, p0, eps)
-        prop_U = jnp.where(jnp.isfinite(prop_U), prop_U, jnp.inf)
-        prop_K = 0.5 * jnp.sum((p_new * col_mask) ** 2, axis=1)
-
-        comp = jnp.minimum(0.01, -(prop_U + prop_K) + (state.potential + prev_K))
-        u = jax.random.uniform(k_acc, (n_chains,), jnp.float32)
-        accepted = u < jnp.exp(comp)
-
-        new_state = FusedHMCState(
-            position=jnp.where(accepted[:, None], z_new, state.position),
-            potential=jnp.where(accepted, prop_U, state.potential),
-        )
-        return new_state, {"accepted": accepted}
-
-    step.init = init
-    step.dim = dim
-    step.dim_padded = Dp
-    return step
-
-
-# ---------------------------------------------------------------------------
-# Runtime-parameter fused trajectory: step size as an SMEM scalar and a
-# diagonal inverse mass as a VMEM row, so adaptive samplers (ChEES) can
-# drive the fused GLM leapfrog with per-draw adapted parameters.
-# ---------------------------------------------------------------------------
-
-def make_fused_trajectory_rt(X, y, prior_scale: float, n_leap: int,
-                             block_chains: int = 256, interpret: bool = False,
-                             link: str = "logistic"):
-    """Like :func:`make_fused_trajectory` but ``traj(z, p, eps, inv_mass)``
-    takes the (traced) step size and a ``(Dp,)`` diagonal inverse mass at
-    call time: ``z += eps * inv_mass * p`` drift, kicks unchanged. The
-    leapfrog count stays compile-time static — callers switch between a few
-    compiled counts (``lax.switch``) for adaptive trajectory lengths."""
-    if not callable(link) and link not in _LINKS:
-        raise ValueError(f"link must be callable or one of {_LINKS}, got {link!r}")
-    X = jnp.asarray(X, jnp.float32)
-    y = jnp.asarray(y, jnp.float32)
-    n_data, dim = X.shape
-    Np = _round_up(n_data, 512)
-    Dp = _round_up(dim, 128)
-    inv_pv = 1.0 / (prior_scale * prior_scale)
-
-    Xp = jnp.zeros((Np, Dp), jnp.float32).at[:n_data, :dim].set(X)
-    Xb = Xp.astype(jnp.bfloat16)
-    Xtb = Xp.T.astype(jnp.bfloat16)
-    yrow = jnp.zeros((1, Np), jnp.float32).at[0, :n_data].set(y)
-    mask = jnp.zeros((1, Np), jnp.float32).at[0, :n_data].set(1.0)
-    link_eval_ = _link_eval_fns(link)
-
-    def kernel(eps_ref, z_ref, p_ref, im_ref, xt_ref, x_ref, y_ref, m_ref,
-               oz_ref, op_ref, ou_ref):
-        eps = eps_ref[0]
-        z = z_ref[:]
-        p = p_ref[:]
-        im = im_ref[:]
-        xt = xt_ref[:]
-        x = x_ref[:]
-        yv = y_ref[:]
-        mv = m_ref[:]
-
-        def grad_of(z, want_u):
-            eta = jnp.dot(z.astype(jnp.bfloat16), xt,
-                          preferred_element_type=jnp.float32)
-            mu, ll_terms = link_eval_(eta, yv)
-            r = (yv - mu) * mv
-            g = jnp.dot(r.astype(jnp.bfloat16), x,
-                        preferred_element_type=jnp.float32) - z * inv_pv
-            if want_u:
-                ll = jnp.sum(mv * ll_terms, axis=1, keepdims=True)
-                u = -(ll - 0.5 * jnp.sum(z * z, axis=1, keepdims=True) * inv_pv)
-            else:
-                u = None
-            return g, u
-
-        # boundary gradient hoisted: n_leap + 1 evaluations, not 2 * n_leap
-        u_out = None
-        g, _ = grad_of(z, False)
-        for k in range(n_leap):
-            p = p + (0.5 * eps) * g
-            z = z + eps * (im * p)
-            g, u = grad_of(z, k == n_leap - 1)
-            p = p + (0.5 * eps) * g
-            u_out = u
-
-        oz_ref[:] = z
-        op_ref[:] = p
-        ou_ref[:] = u_out
-
-    def traj(z, p, eps, inv_mass):
-        n_chains = z.shape[0]
-        if n_chains % block_chains != 0:
-            raise ValueError(
-                f"n_chains={n_chains} must be a multiple of "
-                f"block_chains={block_chains}"
-            )
-        grid = (n_chains // block_chains,)
-        bspec = pl.BlockSpec((block_chains, Dp), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-        full = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                          memory_space=pltpu.VMEM)
-        eps_arr = jnp.asarray(eps, jnp.float32).reshape(1)
-        im_row = jnp.asarray(inv_mass, jnp.float32).reshape(1, Dp)
-        z_new, p_new, u_new = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), bspec, bspec,
-                      full((1, Dp)), full((Dp, Np)), full((Np, Dp)),
-                      full((1, Np)), full((1, Np))],
-            out_specs=[bspec, bspec,
-                       pl.BlockSpec((block_chains, 1), lambda i: (i, 0),
-                                    memory_space=pltpu.VMEM)],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, Dp), jnp.float32),
-                jax.ShapeDtypeStruct((n_chains, 1), jnp.float32),
-            ],
-            interpret=interpret,
-        )(eps_arr, z, p, im_row, Xtb, Xb, yrow, mask)
-        return z_new, p_new, u_new[:, 0]
-
-    traj.dim = dim
-    traj.dim_padded = Dp
-    return traj
+    return _hmc_transition(traj, potential, traj.dim, traj.dim, step_size,
+                           step_jitter)

@@ -1,8 +1,9 @@
-"""Sampler-surface drivers for the fused Pallas HMC steps.
+"""Sampler-surface drivers for the batched HMC steps of
+:mod:`mcmc_tpu.ops.fused_logreg`.
 
-:mod:`mcmc_tpu.ops.fused_logreg` provides batched HMC transitions whose
-whole leapfrog trajectory runs inside one Pallas kernel (VMEM-resident, MXU
-matmuls — the ~2.7x-over-XLA path of docs/performance.md). These wrappers
+That module provides a GLM HMC transition whose whole leapfrog trajectory
+runs inside one Pallas kernel, and a multivariate-Gaussian transition whose
+leapfrog is a plain ``lax.fori_loop``. These wrappers
 put them behind the standard entry-point contract — burn-in + keep scan,
 ``SamplerResult`` with draws ``(n_keep, n_chains, dim)`` and acceptance —
 so the BASELINE suite configs (and users with GLM / multivariate-Gaussian
@@ -22,7 +23,7 @@ from jax import lax
 
 from mcmc_tpu.results import SamplerResult
 from mcmc_tpu.ops.fused_logreg import (
-    make_fused_hmc_step, make_fused_gaussian_hmc_step)
+    make_fused_hmc_step, make_gaussian_hmc_step)
 
 __all__ = ["fused_glm_hmc", "fused_gaussian_hmc", "run_fused_step"]
 
@@ -75,19 +76,19 @@ def run_fused_step(step, positions, n_burnin, n_keep, key,
 def fused_glm_hmc(X, y, *, link="logistic", prior_scale=10.0, step_size=0.05,
                   n_leap=8, n_chains=2048, n_burnin_draws=500,
                   n_keep_draws=1000, init_scale=0.05, key=None,
-                  block_chains=256, interpret=False,
-                  steps_per_draw=1) -> SamplerResult:
+                  interpret=False, steps_per_draw=1) -> SamplerResult:
     """Fused-trajectory HMC on a GLM posterior ``y | X beta ~ family(link)``
     with a ``N(0, prior_scale^2)`` prior — logistic / poisson / linear /
     probit built in, :func:`mcmc_tpu.ops.fused_logreg.studentt_link` (or any
-    callable link) pluggable. The whole ``n_leap`` trajectory runs in VMEM
-    (see fused_logreg module docstring)."""
+    callable link) pluggable. The whole ``n_leap`` trajectory runs in one
+    Pallas kernel per block of chains (see the fused_logreg module
+    docstring); ``interpret=True`` runs it in the Pallas interpreter, for
+    tests on the CPU."""
     key = jax.random.PRNGKey(0) if key is None else key
     k_init, k_run = jax.random.split(key)
     step = make_fused_hmc_step(X, y, prior_scale=prior_scale,
                                step_size=step_size, n_leap=n_leap,
-                               block_chains=block_chains, interpret=interpret,
-                               link=link)
+                               interpret=interpret, link=link)
     pos0 = init_scale * jax.random.normal(k_init, (n_chains, step.dim),
                                           jnp.float32)
     return run_fused_step(step, pos0, n_burnin_draws, n_keep_draws, k_run,
@@ -96,23 +97,18 @@ def fused_glm_hmc(X, y, *, link="logistic", prior_scale=10.0, step_size=0.05,
 
 def fused_gaussian_hmc(precision, mean=None, *, step_size=0.5, n_leap=32,
                        n_chains=2048, n_burnin_draws=500, n_keep_draws=1000,
-                       init_scale=0.05, key=None, block_chains=256,
-                       interpret=False, steps_per_draw=1,
+                       init_scale=0.05, key=None, steps_per_draw=1,
                        step_jitter=0.2) -> SamplerResult:
-    """Fused-trajectory HMC on a multivariate Gaussian ``N(mean, P^{-1})``
-    given the precision ``P`` (dense or diagonal) — the pure-MXU-matmul
-    member of the fused family; the natural engine for the ill-conditioned
-    BASELINE stress config where long jittered-step trajectories carry the
-    slow directions (``step_jitter`` breaks the fixed-angle resonances an
-    exactly quadratic target otherwise hits — see
-    :func:`mcmc_tpu.ops.fused_logreg.make_fused_gaussian_hmc_step`)."""
+    """Batched HMC on a multivariate Gaussian ``N(mean, P^{-1})`` given the
+    precision ``P`` (dense or diagonal) — the natural engine for the
+    ill-conditioned BASELINE stress config where long jittered-step
+    trajectories carry the slow directions (``step_jitter`` breaks the
+    fixed-angle resonances an exactly quadratic target otherwise hits — see
+    :func:`mcmc_tpu.ops.fused_logreg.make_gaussian_hmc_step`)."""
     key = jax.random.PRNGKey(0) if key is None else key
     k_init, k_run = jax.random.split(key)
-    step = make_fused_gaussian_hmc_step(precision, mean, step_size=step_size,
-                                        n_leap=n_leap,
-                                        block_chains=block_chains,
-                                        interpret=interpret,
-                                        step_jitter=step_jitter)
+    step = make_gaussian_hmc_step(precision, mean, step_size=step_size,
+                                  n_leap=n_leap, step_jitter=step_jitter)
     pos0 = init_scale * jax.random.normal(k_init, (n_chains, step.dim),
                                           jnp.float32)
     return run_fused_step(step, pos0, n_burnin_draws, n_keep_draws, k_run,

@@ -1,4 +1,4 @@
-"""Mesh-sharded AEES: one ladder position per device, history over ICI.
+"""Mesh-sharded AEES: one ladder position per device, history over the interconnect.
 
 The reference parallelizes the temperature ladder with OpenMP threads that
 read the next-hotter chain's full history from shared memory
@@ -8,7 +8,7 @@ swaps become all-gather/permute collectives"):
 
 - ladder position ``k`` lives on mesh device ``k``;
 - after every draw, each device ``ppermute``s its new state and kernel value
-  one step down the ladder (k -> k+1) over ICI, and the receiver appends it
+  one step down the ladder (k -> k+1) over the interconnect, and the receiver appends it
   to a device-local copy of its hotter chain's history — the only
   cross-chain traffic is one (dim + 1)-float ring transfer per draw;
 - the equi-energy ring construction and jump then read purely local memory.

@@ -4,7 +4,7 @@ The reference parallelizes DE with an OpenMP ``parallel for`` over the
 population (reference src/de.cpp:161-207); every walker reads the shared
 previous-generation matrix. The multi-chip analog (SURVEY.md §7 step 6):
 shard the population axis over the mesh, and once per sweep ``all_gather``
-the previous generation over ICI so each device forms its local walkers'
+the previous generation over the interconnect so each device forms its local walkers'
 ``X_i + gamma (X_c1 - X_c2) + U[-b,b]`` proposals against the full
 population. One collective per generation — cross-chain traffic stays off
 the per-walker critical path.

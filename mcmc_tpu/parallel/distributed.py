@@ -5,7 +5,7 @@ anywhere); its scale ceiling is one machine's OpenMP threads. Here the
 multi-host story is JAX's distributed runtime + GSPMD: every process calls
 :func:`init_distributed`, builds the same global :class:`~jax.sharding.Mesh`
 over all devices, and runs the same jitted sampler — XLA partitions the
-chain axis and inserts collectives over ICI/DCN (psum for pooled adaptation
+chain axis and inserts collectives over the interconnect (psum for pooled adaptation
 statistics, all_gather for DE generations, ppermute for the AEES ladder).
 
 Host-replicated inputs (initial positions, PRNG key batches — every process
@@ -34,9 +34,10 @@ __all__ = ["init_distributed", "global_chain_array", "global_mesh"]
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Join the JAX distributed runtime. On TPU pods the three arguments are
-    auto-detected from the environment and may be omitted; on CPU/GPU pass
-    them explicitly. Must run before the first on-device computation."""
+    """Join the JAX distributed runtime. Pass the three arguments
+    explicitly (the coordinator as ``host:port``) unless the cluster's
+    launcher provides them to JAX. Must run before the first on-device
+    computation."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)

@@ -8,12 +8,14 @@ The reference's only parallelism is OpenMP threads inside one process
   on the hot path;
 - **population** — DE's cross-walker difference proposals read the whole
   previous generation, so the sharded sweep all-gathers the population once
-  per generation over ICI (see ``parallel.de_sharded``);
+  per generation over the interconnect (see ``parallel.de_sharded``);
 - **ladder/history** — AEES's cross-temperature reads (gathers over a
   replicated history ring buffer).
 
-On a multi-host v5p slice, call :func:`jax.distributed.initialize` first and
-pass the global mesh; single-host multi-chip works out of the box.
+On several hosts, call :func:`jax.distributed.initialize` first and pass
+the global mesh; one host with several GPUs works out of the box. Every GPU
+of a host reaches every other at the same rate, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def make_grid_mesh(n_chain_devices: int, n_data_devices: int,
     shards over the first axis (as with :func:`make_mesh`) and the
     *dataset* shards over the second (:func:`shard_data_axis`), so a
     single chain's likelihood reduction runs across ``n_data_devices``
-    chips with XLA-inserted all-reduces over ICI — within-draw
+    chips with XLA-inserted all-reduces over the interconnect — within-draw
     parallelism the reference's OpenMP-over-chains model has no analog
     for (SURVEY.md §2d "SP/CP... absent"; this is its MCMC counterpart).
     """

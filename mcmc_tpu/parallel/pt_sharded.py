@@ -1,4 +1,4 @@
-"""Mesh-sharded parallel tempering: one ladder rung per device, swaps over ICI.
+"""Mesh-sharded parallel tempering: one ladder rung per device, swaps over the interconnect.
 
 The library sampler (:mod:`mcmc_tpu.samplers.pt`) runs the whole ladder as a
 ``(K, d)`` batch on each device. This variant shards the ladder itself —
@@ -12,7 +12,7 @@ inner move saturates a chip (large ``d``, expensive kernels):
   ``(draw_ind, pair_index)``, compute the same Metropolis ratio from the
   exchanged kernel values, and therefore agree on the swap without any
   extra communication — the whole exchange is one (d + 1)-float neighbor
-  transfer each way per round, riding ICI.
+  transfer each way per round, riding the interconnect.
 
 The ladder is fixed here (run the library sampler with ``adapt_temps=True``
 first and pass the adapted ladder as ``temper_vec``). Swap/accept semantics

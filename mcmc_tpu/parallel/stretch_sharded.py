@@ -1,7 +1,7 @@
 """Mesh-sharded stretch-move (Goodman & Weare) ensemble sweep.
 
 The walker axis is sharded over the mesh; each half-update all-gathers the
-complementary half once over ICI so every device forms its local walkers'
+complementary half once over the interconnect so every device forms its local walkers'
 stretch proposals ``X_j + z (X_i - X_j)`` against the *full* complementary
 half — partner choice must be uniform over all of it, not the local shard,
 for the move's stationarity argument to hold.  Two collectives per sweep

@@ -14,7 +14,7 @@ Pathfinder targets the bulk of the posterior and costs only gradients — no
 Hessian — so it scales to high dimension and is robust on non-Gaussian
 geometry (funnels score low-ELBO at the mode and pick an earlier iterate).
 
-TPU-native design (vs. Stan's sequential C++ loop):
+Accelerator-native design (vs. Stan's sequential C++ loop):
 
 - the L-BFGS path is one ``lax.scan`` of ``optax.lbfgs`` (zoom line
   search) carrying fixed-shape ``(J, d)`` ring buffers of curvature pairs
@@ -24,7 +24,7 @@ TPU-native design (vs. Stan's sequential C++ loop):
   the path builds each iterate's factored covariance
   ``Sigma = diag(alpha) + U M U^T`` (inverse-BFGS compact representation,
   Byrd-Nocedal-Schnabel 1994) via a batched thin-QR + ``(2J, 2J)`` eigh —
-  ``d x 2J`` MXU matmuls, no ``d x d`` factorization anywhere — and scores
+  ``d x 2J`` matrix products, no ``d x d`` factorization anywhere — and scores
   ``n_elbo_draws`` per iterate in one batched log-density pass;
 - paths vmap over a leading axis (multi-path Pathfinder is embarrassingly
   parallel), and the PSIS resampling reuses the framework's own

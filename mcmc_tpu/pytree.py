@@ -2,7 +2,7 @@
 
 The sampler entry points speak flat parameter vectors — the reference's
 ``ColVec_t`` convention (reference include/mcmc/rwmh.hpp:41-87), which is
-also what the kernels want on TPU (one contiguous ``(chains, d)`` batch).
+also what the kernels want on an accelerator (one contiguous ``(chains, d)`` batch).
 Real models have structure: ``{"mu": (k,), "L": (k, k), "sigma": ()}``.
 This module bridges the two with :func:`jax.flatten_util.ravel_pytree`:
 

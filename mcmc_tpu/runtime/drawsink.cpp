@@ -2,7 +2,7 @@
 //
 // The reference keeps every draw in a resident matrix sized up front
 // (reference src/rwmh.cpp:105 BMO_MATOPS_SET_SIZE(draws_out, ...)) — fine in
-// one C++ process, wrong for a TPU host that streams millions of draws per
+// one C++ process, wrong for an accelerator host that streams millions of draws per
 // second off-device. This sink double-buffers host-side chunks and writes
 // them to disk on a background thread, so device->host transfer and disk IO
 // overlap with sampling. File layout: 64-byte header (magic, dtype, ndim,

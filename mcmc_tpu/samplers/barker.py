@@ -24,7 +24,7 @@ MH correction (the Gaussian envelopes cancel; only the skew factors remain):
               + sum_i [softplus(-d_i·g_i(x)) - softplus(d_i·g_i(y))],
     d = y - x
 
-TPU-native design: everything is element-wise VPU work — one fused
+Accelerator-native design: everything is element-wise vector work — one fused
 ``value_and_grad`` per draw (the current point's gradient rides in the chain
 state, as in samplers/mala.py), a Bernoulli sign flip, and a softplus
 correction; no linear algebra at all. Composes with the standard driver

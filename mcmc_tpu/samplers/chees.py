@@ -1,6 +1,6 @@
 """ChEES-HMC: adaptive-trajectory HMC without tree building.
 
-No reference analog — this is the framework's TPU-first answer to the
+No reference analog — this is the framework's accelerator-first answer to the
 question NUTS answers on CPUs. NUTS's recursive doubling is control-flow
 heavy and, under ``vmap``, every chain pays the deepest tree in the batch
 each draw (the straggler cost; see samplers/nuts.py). ChEES-HMC (Hoffman,

@@ -26,7 +26,7 @@ Sampling from *past* states only (the archive is appended every
 keeps every generation a valid MH update, and the diminishing-adaptation
 argument of the paper gives ergodicity.
 
-TPU-native design: each walker's proposal depends only on its own state and
+Accelerator-native design: each walker's proposal depends only on its own state and
 the shared archive — there is **no cross-walker read of the current
 generation at all** (unlike DE's ``X_c1 - X_c2``), so the population
 vectorizes with zero collective traffic; both candidate moves are formed for

@@ -27,11 +27,11 @@ safety cap (hitting it leaves the chain in place and reports the draw as
 not accepted — ``accept_rate < 1`` is the numerical-health signal, as for
 SGLD).
 
-TPU-native design: the shrink loop is a ``lax.while_loop`` vmapped over
+Accelerator-native design: the shrink loop is a ``lax.while_loop`` vmapped over
 chains — iterations run lockstep across the chain batch (every chain pays
 the slowest chain's bracket), but the loop is short (typically 2-8
 likelihood evaluations) and each iteration is ONE batched likelihood eval
-across all chains, so the MXU/VPU stay fed. The prior draw ``nu`` uses the
+across all chains, so the matrix and vector units stay fed. The prior draw ``nu`` uses the
 same trace-time SPD specialization as every other sampler (identity /
 diagonal / dense Cholesky, precomputed once). Composes with ``mesh=``
 chain sharding, ``checkpoint_dir``, ``thin``, and ``return_resume`` via

@@ -16,7 +16,7 @@ motion — the kernel family underlying MEADS (Hoffman & Sountsov 2022,
 AISTATS). Rejections reverse the motion, so GHMC wants a HIGH target
 acceptance (default 0.95 here vs 0.8 for HMC) and a small step size.
 
-TPU-first: like MALA/Barker, the whole transition is a handful of VPU
+Accelerator-first: like MALA/Barker, the whole transition is a handful of vector
 ops plus one gradient — no tree, no lockstep straggler tax — so draws
 vectorize perfectly across thousands of chains. Per-chain step-size
 jitter (``jitter``) desynchronizes the periodic resonances that plague
@@ -27,12 +27,12 @@ Defaults: ``alpha`` is derived from the damping form
 0.0 (auto), with decoherence length ``L = sqrt(dim)`` — matching the
 microcanonical family's auto-L convention (samplers/mclmc.py).
 
-Tuning note (measured, benchmarks/ghmc_probe_r5_trajlen.json): on the
-100-d flagship the throughput-optimal protocol is ``n_leap_steps=3``,
-``thin=4``, ``momentum_persistence=0.98`` at the 0.95 accept target —
-16.8M min-ESS/s seed-stable, 3x the 1-leapfrog default protocol.
-Under-warmed persistent chains are fragile: budget warmup in
-TRANSITIONS (burn-in draws x thin), not kept draws.
+Tuning note: on the 100-d flagship the bench protocol is
+``n_leap_steps=3``, ``thin=4``, ``momentum_persistence=0.98`` at the 0.95
+accept target (benchmarks/ghmc_probe.py sweeps the alternatives; its
+min-ESS/s on the GPU is not measured yet). Under-warmed persistent chains
+are fragile: budget warmup in TRANSITIONS (burn-in draws x thin), not kept
+draws.
 """
 
 from __future__ import annotations

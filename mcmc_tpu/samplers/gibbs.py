@@ -8,7 +8,7 @@ transition kernel, conditioned on the current values of the others —
 Metropolis-within-Gibbs, HMC-within-Gibbs, slice-within-Gibbs, and exact
 conjugate conditional draws, freely mixed.
 
-TPU-first design: one Gibbs sweep is a single fused XLA program — the
+Accelerator-first design: one Gibbs sweep is a single fused XLA program — the
 per-block sub-kernels are the library's own pure ``(key, state) ->
 (state, info)`` builders (:func:`build_rwmh_kernel`,
 :func:`build_hmc_kernel`, :func:`build_slice_kernel`) instantiated at

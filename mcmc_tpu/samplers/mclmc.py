@@ -15,7 +15,7 @@ whose unique stationary distribution on {|u|=1} marginalizes to the target
 p(x). Discretized with the velocity-Verlet splitting below, every step costs
 ONE gradient and every step is a draw — there is no tree, no accept/reject,
 and the batch is perfectly lockstep under ``vmap`` (the same property that
-makes ChEES beat NUTS on TPU, taken one step further). The price of the
+lets ChEES outrun NUTS on wide batches, taken one step further). The price of the
 unadjusted chain is an O(step_size^2) stationary bias, controlled by tuning
 the step size so the per-dimension squared energy error per step
 E[dE^2]/d stays at ``desired_energy_var`` (5e-4 default, the Robnik et al.

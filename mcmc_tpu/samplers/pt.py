@@ -10,11 +10,11 @@ the exact two-temperature Metropolis ratio
 
     log alpha_k = (beta_k - beta_{k+1}) * (logK(x_{k+1}) - logK(x_k)).
 
-TPU-native design:
+Accelerator-native design:
 
 - the whole ladder is one ``(K, d)`` batch: inner moves are a single vmap
   over the ladder axis (K tempered HMC trajectories run as one batched
-  leapfrog — MXU-friendly, no per-temperature loop);
+  leapfrog — matmul-friendly, no per-temperature loop);
 - the even/odd swap phase is a masked index permutation of the ladder batch
   — zero host synchronization, zero gather/scatter: active non-overlapping
   pairs swap via one ``jnp.where`` on a permutation vector;
@@ -25,7 +25,7 @@ TPU-native design:
   standard scan driver: ``n_chains`` independent ladders vmap/shard over the
   chain axis and compose with ``mesh`` and ``checkpoint_dir`` like every
   other sampler. A ladder-sharded variant (one temperature per device, swaps
-  over ICI via ``ppermute``) lives in ``mcmc_tpu.parallel.pt_sharded``.
+  over the interconnect via ``ppermute``) lives in ``mcmc_tpu.parallel.pt_sharded``.
 
 **Ladder adaptation** (``adapt_temps=True``): Robbins-Monro stochastic
 approximation on the log inverse-temperature spacings (Miasojedow, Moulines
@@ -33,7 +33,7 @@ approximation on the log inverse-temperature spacings (Miasojedow, Moulines
 structural — no ordering constraint to enforce), each attempted swap updates
 ``rho_k += gamma_t * (alpha_k - target_swap_accept)`` toward the classic
 0.234 swap-acceptance target, with the swap probability pooled across the
-vmapped chain axis (``lax.pmean`` — a psum over ICI when chains are
+vmapped chain axis (``lax.pmean`` — a psum over the interconnect when chains are
 mesh-sharded). Adaptation freezes after ``n_adapt_draws`` (default: the
 burn-in), keeping the kept phase a valid fixed-kernel MCMC run.
 

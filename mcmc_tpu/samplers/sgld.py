@@ -22,7 +22,7 @@ of the unadjusted-Langevin Gaussian stationary variance), vanishing as
 WITH replacement each draw, per chain (O(B) index generation; the gather
 batches on the accelerator).
 
-TPU-native design: the minibatch gather + gradient is one fused XLA
+Accelerator-native design: the minibatch gather + gradient is one fused XLA
 program per draw, vmapped over chains, scanned over draws; composes with
 ``mesh=`` chain sharding like every other sampler. In the default
 ``minibatch="per-chain"`` mode every chain draws its own minibatch, so
@@ -176,9 +176,8 @@ def build_sgld_kernel(prob: common.Problem, log_lik, data, n_data,
     def batched_step(keys, states: SGLDState):
         """Shared-minibatch chain-batch transition: ONE gather per draw
         for the whole batch, so the minibatch read is a contiguous slice
-        feeding an MXU matmul instead of a per-chain random-row gather —
-        measured ~250x the per-chain mode's draws/s on TPU at
-        (1024 chains, B=512, N=65536). Chain 0's per-draw key is split
+        feeding one matrix product instead of a per-chain random-row
+        gather. Chain 0's per-draw key is split
         into disjoint (batch, noise) streams, every other chain
         contributes only its noise stream; chains share gradient noise
         but keep independent injected noise."""
@@ -210,14 +209,13 @@ def sgld(initial_vals, log_prior, log_lik, data, settings=None, *,
 
     - ``"per-chain"`` (default): every chain draws its own minibatch —
       fully independent chains, but the (chains, B) random-row gather is
-      the per-draw bottleneck on TPU;
+      the per-draw bottleneck;
     - ``"shared"``: ONE minibatch per draw for the whole chain batch —
-      the gather collapses to a (B, ...) slice feeding an MXU matmul,
-      measured ~250x faster at (1024 chains, B=512, N=65536, d=16) on a
-      v5e chip. Chains share gradient noise (slightly correlated chains;
+      the gather collapses to a (B, ...) slice feeding one matrix product
+      (speed on the GPU not measured). Chains share gradient noise (slightly correlated chains;
       cross-chain diagnostics like R-hat lose a little power) but keep
       independent injected Langevin noise — each chain still targets the
-      same distribution. The TPU-native choice for throughput runs.
+      same distribution. The choice for throughput runs.
 
     ``adapt_precond=True`` (or ``"rmsprop"``) runs **pSGLD** (Li et al.
     2016): a per-dimension RMSprop preconditioner
@@ -358,7 +356,7 @@ def build_sghmc_kernel(prob: common.Problem, log_lik, data, n_data,
 
     def batched_step(keys, states: SGHMCState):
         """Shared-minibatch variant — same rationale and key routing as
-        SGLD's (one (B, ...) gather feeding an MXU matmul)."""
+        SGLD's (one (B, ...) gather feeding one matrix product)."""
         pairs = jax.vmap(lambda k: jax.random.split(k, 2))(keys)
         idx = jax.random.randint(pairs[0, 0], (B,), 0, N)
         batch = jax.tree_util.tree_map(lambda a: a[idx], data)

@@ -24,7 +24,7 @@ bracket shrinks toward x_i the acceptance test approaches
 in exact arithmetic; ``max_shrink_steps`` is a safety cap (a capped
 coordinate keeps its value and the draw reports as not accepted).
 
-TPU-native design: the coordinate sweep is a ``lax.scan`` over the (static)
+Accelerator-native design: the coordinate sweep is a ``lax.scan`` over the (static)
 dimension, the stepping-out and shrinkage loops are ``lax.while_loop``s,
 and the whole kernel vmaps over chains — every loop iteration is one
 batched full log-kernel evaluation across the chain batch. Cost anatomy:

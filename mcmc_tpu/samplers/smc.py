@@ -34,12 +34,12 @@ lambda: 0 -> 1. Stage t does, in order:
    standard deviations (inner="hmc"). The cloud itself provides the
    preconditioner; nothing is hand-tuned per stage.
 
-TPU-native design: the entire run is ONE jitted ``lax.while_loop`` over
+Accelerator-native design: the entire run is ONE jitted ``lax.while_loop`` over
 stages — the bisection (~30 reweightings of an (N,) vector), the cumsum /
 searchsorted resampling, the (d, d) population Cholesky, and the vmapped
 mutation sweep all stay on device; nothing round-trips the host. Under
 ``mesh`` the particle axis is sharded and GSPMD turns the reductions
-(logsumexp, mean/cov), the resampling cumsum, and the index gather into ICI
+(logsumexp, mean/cov), the resampling cumsum, and the index gather into interconnect
 collectives.
 
 Because each bridging density is only ever *sampled approximately*, SMC's

@@ -15,7 +15,7 @@ partner walker drawn from the complementary half of the ensemble:
 
 accepted with probability ``min(1, z^(d-1) exp(logK(Y) - logK(X_i)))``.
 
-TPU-native design: the ensemble is a first-class batch axis.  Each sweep is
+Accelerator-native design: the ensemble is a first-class batch axis.  Each sweep is
 two vectorized half-updates (the parallel "red-black" scheme of
 Foreman-Mackey et al. 2013, §3): half A proposes against the *current* half
 B in one fused vmap — partner gather, z draws, kernel evaluations, accepts
@@ -24,7 +24,7 @@ the serial stretch move's stationary distribution (each half-update is a
 valid Metropolis-Hastings kernel holding the complementary half fixed), with
 none of the reference DE pattern's OpenMP scheduling nondeterminism.  Under
 ``mesh`` the walker axis is sharded and each half-update all-gathers the
-complementary half once over ICI (``mcmc_tpu.parallel.stretch_sharded``).
+complementary half once over the interconnect (``mcmc_tpu.parallel.stretch_sharded``).
 
 Bounded problems run on the unconstrained space via the box log-kernel
 (+ log-Jacobian), with the initial ensemble placed there too — a deliberate
@@ -127,7 +127,7 @@ def stretch(initial_vals, log_kernel, settings=None, *, key=None, mesh=None,
     draws of shape ``(n_keep, n_walkers, n_vals)``.
 
     With ``mesh``, the walker axis is sharded across devices; each
-    half-update all-gathers the complementary half once over ICI.
+    half-update all-gathers the complementary half once over the interconnect.
     """
     algo, s = resolve_settings(settings, "stretch_settings", StretchSettings)
     key = resolve_key(key, algo)

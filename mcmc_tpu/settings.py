@@ -194,7 +194,8 @@ class PTSettings:
     classic multimodal sampler the reference's AEES approximates; see
     samplers/pt.py). A ladder of replicas targets ``beta_k * log_kernel``
     with HMC or RWMH inner moves; adjacent replicas attempt even/odd
-    state swaps — on TPU a pure masked index permutation, no host sync."""
+    state swaps — a pure masked index permutation on the device, no host
+    sync."""
     n_burnin_draws: int = 1000
     n_keep_draws: int = 1000
     temper_vec: Optional[ArrayLike] = None  # user ladder; T=1 appended

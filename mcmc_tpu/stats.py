@@ -37,7 +37,7 @@ def dmvnorm(x, mu, sigma, log=False):
     ``sigma`` may be a scalar (isotropic), a 1-D array (diagonal), or a 2-D
     covariance matrix; the matrix path uses a Cholesky solve rather than the
     reference's explicit ``QUAD_FORM_INV`` + ``LOG_DET`` for stability and
-    batching-friendliness on TPU.
+    batching-friendliness on an accelerator.
     """
     x = jnp.asarray(x)
     mu = jnp.asarray(mu, x.dtype)

@@ -14,9 +14,9 @@ exactly gradient ascent to the MAP, with many it approximates the full
 posterior. Deterministic (no MH, no rejection), and between MCMC and VI in
 character: richer than a parametric q, cheaper than a long chain.
 
-TPU-native design: the update is *built* of batched all-pairs primitives —
+Accelerator-native design: the update is *built* of batched all-pairs primitives —
 the (N, N) squared-distance matrix, the RBF kernel, and the kernel-weighted
-gradient sums are three MXU matmuls per step; the whole optimization is one
+gradient sums are three matrix products per step; the whole optimization is one
 jitted ``lax.scan`` of Adam-preconditioned steps (Adam smooths the
 notoriously scale-sensitive raw SVGD step). The bandwidth follows the
 median heuristic ``h = med^2 / log N``, recomputed every step from the
@@ -97,7 +97,7 @@ def svgd(initial_vals, log_kernel, settings=None, *, n_particles=256,
     ``initial_vals`` centers the initial cloud (``init_scale``-sized
     Gaussian spread in unconstrained space). ``n_particles`` bounds the
     resolution of the posterior approximation; the per-step cost is the
-    (N, N) kernel — thousands of particles are cheap on the MXU.
+    (N, N) kernel — thousands of particles are cheap as matrix products.
     """
     if settings is None:
         settings = AlgoSettings()

@@ -5,8 +5,8 @@
 # single-process build) — this wires jax.distributed.initialize around the
 # chain-sharded workload in benchmarks/scaling.py.
 #
-# TPU pod slice (coordinator/process-id auto-detect; run on EVERY host,
-# e.g. via `gcloud compute tpus tpu-vm ssh ... --worker=all --command=`):
+# With no arguments the coordinates come from the cluster's launcher
+# (jax.distributed auto-detection), where it provides them:
 #
 #     scripts/run_multihost.sh
 #
